@@ -163,16 +163,16 @@ def test_group_entropy_pipelined_chunks_bit_exact(monkeypatch):
             assert chunked[i] == w.getvalue(), f"tables={dtab} lane {i}"
 
 
-def test_word_packed_scan_matches_dense(monkeypatch):
+def test_word_packed_scan_matches_dense():
     """Fast-path/twin invariant for the entropy scan: the word-packed
     emission path (_rans_scan_lanes_words, default) and the dense
-    byte-slot path (_rans_scan_lanes + Pallas kernel layout) must produce
-    identical buffers for ragged lane lengths and both table shapes."""
+    byte-slot lax.scan twin (_rans_scan_lanes) must produce identical
+    buffers for ragged lane lengths and both table shapes."""
     import numpy as np
 
-    import tpudraco.ops.pallas_kernels as pk
     from tpudraco.entropy.rans import normalize_freq_counts
-    from tpudraco.ops.rans_lanes import rans_encode_lanes
+    from tpudraco.ops.rans_lanes import (_append_flush, _rans_scan_lanes,
+                                         rans_encode_lanes)
 
     rng = np.random.RandomState(5)
     L, T = 20, 700
@@ -181,17 +181,24 @@ def test_word_packed_scan_matches_dense(monkeypatch):
     lengths[0], lengths[1] = 0, T  # degenerate + full lanes
     dist = normalize_freq_counts(np.bincount(syms.ravel()), 12)
     cums = np.concatenate([[0], np.cumsum(dist)[:-1]])
-
-    buf_w, n_w = rans_encode_lanes(syms, dist.astype(np.uint32),
-                                   cums.astype(np.uint32), lengths)
-    # force the dense path (on CPU the Pallas kernel runs in interpret
-    # mode, so this also covers the kernel's emission layout)
-    monkeypatch.setattr(pk, "rans_scan_pallas_viable", lambda L, T: True)
-    buf_d, n_d = rans_encode_lanes(syms, dist.astype(np.uint32),
-                                   cums.astype(np.uint32), lengths)
-    assert np.array_equal(n_w, n_d)
-    for i in range(L):
-        assert buf_w[i, :n_w[i]].tobytes() == buf_d[i, :n_d[i]].tobytes(), i
+    per_lane = (np.broadcast_to(dist, (L, len(dist))),
+                np.broadcast_to(cums, (L, len(cums))))
+    for freqs, cm in ((dist, cums), per_lane):
+        freqs = np.ascontiguousarray(freqs, np.uint32)
+        cm = np.ascontiguousarray(cm, np.uint32)
+        buf_w, n_w = rans_encode_lanes(syms, freqs, cm, lengths)
+        compacted, counts, packed, nflush = _rans_scan_lanes(
+            syms, freqs, cm, lengths, precision=12)
+        buf_d = np.zeros((L, 3 * T + 8), np.uint8)
+        got = np.asarray(compacted)
+        buf_d[:, :got.shape[1]] = got
+        n_d = _append_flush(buf_d, np.asarray(counts).astype(np.int64),
+                            np.asarray(packed).astype(np.uint64),
+                            np.asarray(nflush).astype(np.int64))
+        assert np.array_equal(n_w, n_d)
+        for i in range(L):
+            assert buf_w[i, :n_w[i]].tobytes() == \
+                buf_d[i, :n_d[i]].tobytes(), i
 
 
 import pytest
@@ -564,28 +571,48 @@ def test_dist_prefix_deficit_retry():
     check(3500)  # occupied range far past the guess: deficit path
     assert rans_lanes._DIST_BUCKET[(B, bins)] >= 3500
 
-def test_words_kernel_matches_scan():
-    """The Pallas words-scan kernel (in-kernel fori_loop recurrence with
-    word packing — round 4) must produce byte-identical group payloads to
-    the lax.scan words path, across per-lane tables, ragged lengths, and
-    the device-tables vprec flow. On CPU the kernel runs in interpret
-    mode; TPUDRACO_TEST_TPU=1 re-runs this on real Mosaic lowering."""
-    import jax.numpy as jnp
-    import numpy as np
-
+@pytest.mark.parametrize("L,T,vprec", [
+    (24, 640, False),   # ragged lanes, T a multiple of K
+    (37, 613, False),   # L odd, T not a multiple of K
+    (37, 613, True),    # per-lane precisions (the device-tables flow)
+    (5, 131, True),     # a handful of lanes
+])
+def test_words_scan_matches_host(L, T, vprec):
+    """The words scan, unpacked as the encoder unpacks it, gives every
+    lane the host rANS coder's bytes for ragged lengths (empty lanes
+    included), per-lane precisions 12..20, and symbol counts that are
+    not a multiple of SYMBOLS_PER_STEP."""
     from tpudraco.ops import rans_lanes
 
-    rng = np.random.default_rng(11)
-    B, T, C = 24, 640, 3
-    syms = (rng.integers(0, 13, size=(B, T, C)) ** 2).astype(np.int32)
-    counts = np.stack([np.bincount(s.ravel(), minlength=256)
-                       for s in syms]).astype(np.int32)
-    sd, cd = jnp.asarray(syms), jnp.asarray(counts)
-    try:
-        rans_lanes.set_words_kernel(False)
-        ref = rans_lanes.encode_group_entropy_device(sd, cd)
-        rans_lanes.set_words_kernel(True)
-        got = rans_lanes.encode_group_entropy_device(sd, cd)
-    finally:
-        rans_lanes.set_words_kernel(None)
-    assert got == ref
+    rng = np.random.default_rng(L * 1000 + T)
+    syms = (rng.integers(0, 13, size=(L, T)) ** 2).astype(np.int32)
+    lengths = rng.integers(0, T + 1, size=L).astype(np.int32)
+    lengths[0], lengths[1] = T, 0
+    precs = rng.integers(12, 21, size=L) if vprec else np.full(L, 12)
+    S = 256
+    freqs = np.zeros((L, S), np.uint32)
+    for i in range(L):
+        d = normalize_freq_counts(
+            np.bincount(syms[i], minlength=S)[:S], int(precs[i]))
+        freqs[i, :len(d)] = d
+    cums = np.concatenate([np.zeros((L, 1), np.uint32),
+                           np.cumsum(freqs, axis=1)[:, :-1]],
+                          axis=1).astype(np.uint32)
+    args = [jnp.asarray(a) for a in (syms, freqs, cums, lengths)]
+    k = rans_lanes.SYMBOLS_PER_STEP
+    if vprec:
+        combined = rans_lanes._rans_scan_lanes_words_vprec(
+            *args, jnp.asarray(precs.astype(np.uint32)), compact="sortkv",
+            k=k)
+    else:
+        combined = rans_lanes._rans_scan_lanes_words(
+            *args, precision=12, compact="sortkv", k=k)
+    bufs, counts, packed, nflush = rans_lanes._collect_words(
+        combined, L, T, -1)
+    nbytes = rans_lanes._append_flush(
+        bufs, counts, np.asarray(packed).astype(np.uint64),
+        np.asarray(nflush).astype(np.int64))
+    for i in range(L):
+        enc = RansEncoder(freqs[i], precision=int(precs[i]))
+        enc.write_all(syms[i, :lengths[i]])
+        assert bufs[i, :nbytes[i]].tobytes() == enc.flush(), f"lane {i}"

@@ -1,6 +1,6 @@
 """Size-baseline pins (VERDICT r4 #6): the per-fixture/per-config .drc
 byte sizes recorded in tests/size_baseline.json (and rendered into
-BASELINE.md's generated table) must stay exact, so compression-ratio
+SIZES.md's generated table) must stay exact, so compression-ratio
 regressions surface the way throughput regressions do. Regenerate
 deliberately with
   python -m tpudraco.tools.batch_analyze --size-table --update-baseline .
@@ -39,12 +39,12 @@ def test_size_baseline_bytes_pinned():
 
 @needs_ref
 def test_size_baseline_markdown_in_sync():
-    """BASELINE.md's generated block must match the pinned totals (stale
+    """SIZES.md's generated block must match the pinned totals (stale
     docs are worse than no docs)."""
     from tpudraco.tools.batch_analyze import SIZE_TABLE_BEGIN
 
     baseline_md = os.path.join(os.path.dirname(__file__), "..",
-                               "BASELINE.md")
+                               "SIZES.md")
     with open(baseline_md) as f:
         text = f.read()
     assert SIZE_TABLE_BEGIN in text, "generated size table missing"
@@ -57,4 +57,4 @@ def test_size_baseline_markdown_in_sync():
                       if ln.startswith("| **total bytes** |"))
     for t in totals.values():
         assert str(t) in total_line, (
-            f"total {t} not in BASELINE.md table — regenerate it")
+            f"total {t} not in SIZES.md table — regenerate it")

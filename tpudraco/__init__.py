@@ -1,10 +1,10 @@
-"""tpudraco — a TPU-native Draco-bitstream 3D mesh codec.
+"""tpudraco — a Draco-bitstream 3D mesh codec with a JAX device plane.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 reearth/draco-oxide: Draco v2.2 encode + decode (edgebreaker and sequential
 connectivity, quantization/prediction/transform attribute pipeline, rANS
 entropy coding), OBJ and glTF I/O with a KHR_draco_mesh_compression
-transcoder, and data-parallel batch encoding over TPU device meshes.
+transcoder, and data-parallel batch encoding over GPU device meshes.
 
 Layer map (mirrors SURVEY.md §1 for the reference):
   wire/     — L0 byte/bit I/O, leb128, zigzag
@@ -14,7 +14,7 @@ Layer map (mirrors SURVEY.md §1 for the reference):
   decode/   — L4/L5 mirrors, top-level decode()
   io/       — L6 OBJ/glTF loaders, transcoder
   tools/    — L7 CLI + analyzer
-  ops/      — device (JAX/Pallas) kernels for the data plane
+  ops/      — device (JAX) kernels for the data plane
   parallel/ — multi-chip sharded batch driver
   native/   — C++ fast paths (rANS, traversal) via ctypes
 """

@@ -8,8 +8,6 @@ from .device import (
     encode_step,
     encode_step_chunk,
     encode_step_from_q,
-    encode_step_pallas,
-    encode_step_pallas_from_q,
     minmax_chunk_kernel,
     parallelogram_predict_kernel,
     quantize_kernel,
@@ -21,24 +19,14 @@ from .device import (
     zigzag_kernel,
 )
 from .gathers import build_parallelogram_gathers
-from .pallas_kernels import (
-    build_combined_matrix,
-    build_prediction_matrix,
-    histogram_pallas,
-    predict_matmul_pallas,
-    predict_matmul_viable,
-)
 
 __all__ = [
     "bincount_kernel", "default_hist_bins", "dequantize_kernel",
     "f32_div_exact", "f32_mul_exact", "f32_sqrt_exact",
     "encode_step", "encode_step_chunk", "encode_step_from_q",
-    "encode_step_pallas", "encode_step_pallas_from_q",
     "minmax_chunk_kernel", "parallelogram_predict_kernel", "quantize_kernel",
     "quantize_rows_kernel", "quantized_range_chunk_kernel",
     "unpack12_kernel", "unzigzag_kernel", "wrapped_difference_kernel",
     "zigzag_kernel",
-    "build_parallelogram_gathers", "build_combined_matrix",
-    "build_prediction_matrix", "histogram_pallas", "predict_matmul_pallas",
-    "predict_matmul_viable",
+    "build_parallelogram_gathers",
 ]

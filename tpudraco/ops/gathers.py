@@ -4,8 +4,8 @@ device prediction kernels.
 The encoder-side parallelogram prediction is a pure gather once the
 traversal order and visited-before masks are known (the decoder's
 sequential dependency does not exist on the encoder: all values are
-available). This is the central TPU-side restructuring of the reference's
-per-vertex loop (attribute_encoder.rs:332-338).
+available). This is the central device-side restructuring of the
+reference's per-vertex loop (attribute_encoder.rs:332-338).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ octahedral quantization (shared/octahedral.py), ring-sum normal
 prediction (shared/prediction.py NormalPrediction), flip selection, and
 the OctahedralOrthogonal residual transform (encode/transforms.py) —
 batched over meshes sharing one topology. The float steps ride
-f32_div_exact / f32_sqrt_exact (TPU hardware div and sqrt are not
+f32_div_exact / f32_sqrt_exact (a backend's div and sqrt need not be
 correctly rounded), integer steps use int32 (wrapping matches the host's
 explicit wrap32), so symbols equal the host encoder's exactly (pinned by
 tests).

@@ -1,11 +1,11 @@
-"""Multi-host pod-scale corpus driver (SURVEY.md §2.9 / §5.8).
+"""Multi-host corpus driver (SURVEY.md §2.9 / §5.8).
 
 The corpus is the natural shard axis: each host owns a deterministic slice
 (round-robin by index so sizes balance), encodes its slice with the
 device-batched BatchEncoder, and rank 0 concatenates per-host reports.
-Collectives ride the JAX distributed runtime (DCN between hosts, ICI
-within a slice); bitstream order is preserved because each output file is
-self-contained and named by its input.
+Collectives ride the JAX distributed runtime (the network between hosts,
+NVLink between the cards of one host); bitstream order is preserved
+because each output file is self-contained and named by its input.
 
 Single-process (tests, one host) degenerates to the plain batch driver.
 """
@@ -18,16 +18,33 @@ import os
 
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> tuple[int, int]:
+                     process_id: int | None = None,
+                     local_device_ids: list[int] | None = None
+                     ) -> tuple[int, int]:
     """Initialize jax.distributed when run under a multi-host launcher;
-    returns (process_id, num_processes). No-ops on a single host."""
+    returns (process_id, num_processes). No-ops on a single host.
+
+    Unset arguments come from JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES
+    and JAX_PROCESS_ID. Processes that share one host (a localhost
+    coordinator) each take one card, the one numbered ``process_id``,
+    unless ``local_device_ids`` says otherwise: a JAX process reserves
+    most of every card it opens, so two on one card would fail. Processes
+    on separate hosts keep all their local cards."""
     import jax
 
-    if coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS"):
+    coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
+    if coordinator:
+        if num_processes is None and os.environ.get("JAX_NUM_PROCESSES"):
+            num_processes = int(os.environ["JAX_NUM_PROCESSES"])
+        if process_id is None and os.environ.get("JAX_PROCESS_ID"):
+            process_id = int(os.environ["JAX_PROCESS_ID"])
+        host = coordinator.rsplit(":", 1)[0]
+        if (local_device_ids is None and process_id is not None
+                and host in ("localhost", "127.0.0.1", "[::1]")):
+            local_device_ids = [process_id]
         jax.distributed.initialize(
-            coordinator_address=coordinator
-            or os.environ.get("JAX_COORDINATOR_ADDRESS"),
-            num_processes=num_processes, process_id=process_id)
+            coordinator_address=coordinator, num_processes=num_processes,
+            process_id=process_id, local_device_ids=local_device_ids)
     return jax.process_index(), jax.process_count()
 
 
@@ -58,7 +75,7 @@ def encode_corpus_multihost(inputs: list[str], out_dir: str,
         mine, out_dir, resume=resume, workers=workers)
 
     if nproc > 1:
-        # aggregate counters over DCN (one all-gather of a 4-vector);
+        # aggregate counters across hosts (one all-gather of a 4-vector);
         # float64 is exact to 2^53 and avoids the silent int64->int32
         # downcast jnp applies without jax_enable_x64 (byte totals of
         # multi-GiB corpora overflow int32)

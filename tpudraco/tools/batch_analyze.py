@@ -195,10 +195,10 @@ def main(argv=None) -> int:
     p.add_argument("--size-table", action="store_true",
                    help="emit the per-fixture size/quality baseline table "
                         "(markdown to stdout; with --update-baseline also "
-                        "rewrites the generated block in BASELINE.md and "
+                        "rewrites the generated block in SIZES.md and "
                         "tests/size_baseline.json)")
     p.add_argument("--update-baseline", metavar="REPO_ROOT", default=None,
-                   help="repo root whose BASELINE.md / tests get updated")
+                   help="repo root whose SIZES.md / tests get updated")
     args = p.parse_args(argv)
 
     if args.size_table:
@@ -206,14 +206,14 @@ def main(argv=None) -> int:
         print(render_size_table_markdown(rows))
         if args.update_baseline:
             update_baseline_md(
-                os.path.join(args.update_baseline, "BASELINE.md"), rows)
+                os.path.join(args.update_baseline, "SIZES.md"), rows)
             pin = {f"{r['fixture']}:{r['config']}": r["bytes"]
                    for r in rows if "bytes" in r}
             pin_path = os.path.join(args.update_baseline, "tests",
                                     "size_baseline.json")
             with open(pin_path, "w") as f:
                 json.dump(pin, f, indent=1, sort_keys=True)
-            print(f"updated BASELINE.md + {pin_path}")
+            print(f"updated SIZES.md + {pin_path}")
         return 0
 
     if not args.input or not args.output:

@@ -93,7 +93,7 @@ def _build_config(args):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="tpudraco",
-                                description="TPU-native Draco codec")
+                                description="Draco codec")
     p.add_argument("-i", "--input", required=True, help="input file")
     p.add_argument("-o", "--output", required=True, help="output file")
     p.add_argument("--transcode", action="store_true",

@@ -83,6 +83,9 @@ def main(argv=None) -> int:
                          "(COLOR/TANGENT/WEIGHT; encode + transcode)")
     args = ap.parse_args(argv)
     resume = not args.no_resume
+    if args.device or (args.command == "transcode" and not args.host_only):
+        from ..utils.compile_cache import enable_compile_cache
+        enable_compile_cache()
 
     cfg = None
     if any(v is not None for v in (args.qp, args.qt, args.qn, args.qg,

@@ -1,6 +1,6 @@
 """GLB inspection helpers: dump the JSON chunk, extract embedded Draco blobs.
 
-TPU-native equivalents of the reference's Python utilities
+Equivalents of the reference's Python utilities
 (util/extract_glb_json.py and util/extract_draco_binary.py): pull the
 KHR_draco_mesh_compression bufferView payloads out of a GLB/glTF container
 for external decoding or byte-diffing, and pretty-print the scene JSON.
